@@ -14,7 +14,7 @@ Compares, on one shared synthetic tree:
 * the threaded ``BatchLoader`` end to end (what the eval/train loops see).
 
 CPU-only (imports tests.conftest for the reference shims, which forces the
-CPU backend — fine: no TPU is involved in this benchmark).
+CPU backend — fine: no accelerator is involved in this benchmark).
 
 Usage:  PYTHONPATH=. python benchmarks/data_pipeline.py
 """
@@ -46,7 +46,7 @@ def main():
     # consumer idles while batch 1 assembles) — the published 69.2
     # samples/s "cliff" was this amortization artifact, not assembly cost:
     # direct get_batch_collated is FASTER per sample at B=25 than at B=4
-    # (benchmarks/loader_profile.py; docs/RESULTS.md round 4).
+    # (benchmarks/loader_profile.py).
     tree = synthetic.generate_tree(root, datetime(2023, 1, 10, 0),
                                    datetime(2023, 1, 17, 23))
     times = TU.eval_time_list(datetime(2023, 1, 10, 0),
@@ -112,7 +112,7 @@ def main():
             ("batch_loader_pool_mode", "pool", 4, False),
             ("batch_loader_e2e_b25", "auto", 25, False),
             # training shuffles: sample-level forfeits union assembly,
-            # the chunk-shuffle mode keeps it (docs/RESULTS.md)
+            # the chunk-shuffle mode keeps it
             ("batch_loader_shuffle_samples", "auto", 4, True),
             ("batch_loader_shuffle_batches", "auto", 4, "batches"),
             ("batch_loader_shuffle_buffer", "auto", 4, "buffer")):

@@ -1,6 +1,6 @@
 """Host staging A/B: native fused repack vs the numpy path, pooled both
-sides — the executable form of docs/RESULTS.md "Staging repack gone
-native".
+sides — the executable form of the "staging repack gone native"
+measurement.
 
 Measures `sim_stack_to_model_input`'s two implementations on the flagship
 B=25 eval batch (the `evaluation_vit.py:248-249` reshape contract,

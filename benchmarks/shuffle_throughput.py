@@ -2,7 +2,7 @@
 
 The round-3/4 shuffle table's buffer-mode throughput rows were measured
 BEFORE ``BufferPool.ensure_retention`` let the reservoir keep its working
-set across epoch drains (docs/RESULTS.md "Shuffle-buffer training input"),
+set across epoch drains,
 so the published reservoir>=16 numbers paid a first-touch page-fault storm
 every epoch that the shipping code no longer pays.  This benchmark
 re-measures every shuffle mode on one shared synthetic tree with the fixed

@@ -1,4 +1,4 @@
-"""Signature-compatible shim over the TPU framework's evaluation CLI.
+"""Signature-compatible shim over the framework's evaluation CLI.
 
 Keeps the reference's public entry point (``src/evaluation_vit.py`` invoked
 by ``vit_stn_exp.sh:1``) working unmodified: same flags, same defaults, same

@@ -1,5 +1,5 @@
 """Byte-level parity of EVERY remaining dataset variant against the actual
-reference torch classes run on the same inputs (VERDICT r1 item 2).
+reference torch classes run on the same inputs.
 
 ``_only`` and ``_v3`` parity lives in test_data.py; this module covers the
 other nine: the five in-memory station variants, ``_w_curr``, the lazy

@@ -1,4 +1,4 @@
-"""Pod-scale generation driver over the 8-device virtual CPU mesh: sharded
+"""Data-parallel generation driver over the 8-device virtual CPU mesh: sharded
 batches must produce the same fields as unsharded single-device inference."""
 
 import os

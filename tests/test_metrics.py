@@ -182,3 +182,34 @@ def test_f1_empty_event_classes_yields_nan_not_crash():
     s.confusion[0, HIGH] = 3     # truth high, predicted low  -> pod = 0
     s.confusion[HIGH, 0] = 2     # predicted high, truth low  -> far = 1
     assert np.isnan(s.f1())
+
+
+@pytest.mark.parametrize("hour_index", [True, False], ids=["hours", "ints"])
+@pytest.mark.parametrize("output_dim", [2, 6, 12])
+def test_table_str_matches_pandas(output_dim, hour_index):
+    """The pandas-free table layout is byte-identical to the
+    ``DataFrame.to_string`` the reference prints, across magnitudes, signs,
+    NaN, inf and all-NaN columns."""
+    pd = pytest.importorskip("pandas")
+
+    def pandas_table(values):
+        L = output_dim
+        frame = pd.DataFrame({"> 15": values[:L], "> 35": values[L:2 * L],
+                              "> 75": values[2 * L:]})
+        if hour_index:
+            frame.index = [f"{i}H" for i in range(1, L + 1)]
+        with pd.option_context("display.float_format", "{:.4f}".format):
+            return frame.to_string()
+
+    rng = np.random.default_rng(output_dim)
+    n = 3 * output_dim
+    for trial in range(60):
+        v = rng.standard_normal(n) * 10.0 ** rng.integers(-3, 7, n)
+        v[rng.random(n) < rng.random()] = np.nan
+        if trial % 5 == 0:                       # one all-NaN column
+            c = trial % 3
+            v[c * output_dim:(c + 1) * output_dim] = np.nan
+        if trial % 7 == 0:
+            v[rng.integers(0, n)] = rng.choice([np.inf, -np.inf])
+        assert logwriter._table_str(v, output_dim, hour_index) \
+            == pandas_table(v)

@@ -53,7 +53,7 @@ def test_evaluate_by_station(tmp_path):
 
 def test_station_eval_cli_end_to_end(tmp_path):
     """The by_stn workflow is reachable from the command line and writes the
-    reference-style metric block (VERDICT r1 item 7)."""
+    reference-style metric block."""
     from vit_grid_model_tpu.cli import station_eval as cli
 
     cli.main([

@@ -3,7 +3,7 @@
 ``core.torch_export`` must produce a state_dict the ACTUAL reference module
 accepts with ``strict=True`` (every key, every shape), behave as the exact
 inverse of ``core.torch_import``, and preserve the forward function — so a
-TPU-trained model drops back into the reference's torch evaluation stack
+model trained here drops back into the reference's torch evaluation stack
 (``evaluation_vit.py:107-109``) unchanged.
 
 Skipped wholesale when the reference checkout is unavailable.

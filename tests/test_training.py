@@ -209,7 +209,7 @@ def test_data_parallel_matches_single_device():
     state2 = init_train_state(jax.tree.map(jnp.array, params), tc)
     state2 = jax.device_put(state2, meshlib.replicated(mesh))
     sharded = meshlib.shard_batch(mesh, batch)
-    step2 = build_train_step(cfg, tc, mesh)
+    step2 = build_train_step(cfg, tc)
     with mesh:
         state2, m2 = step2(state2, sharded)
     np.testing.assert_allclose(float(m1["loss"]), float(m2["loss"]),
@@ -319,9 +319,27 @@ def test_class_head_outputs():
     assert set(vals) <= {7.5, 25.0, 55.0, 75.0}
 
 
-def test_config_rejects_bwd_flag_without_fwd():
-    """use_pallas_attention_bwd alone has no effect (maxvit gates on the
-    forward flag) — constructing that combination must raise."""
-    with pytest.raises(ValueError, match="use_pallas_attention"):
-        MetNet3Config(window_size=3, n_variables=24, n_start_channels=16,
-                      end_lead_time=2, use_pallas_attention_bwd=True)
+def test_fast_config_loss_curve():
+    """A short loss curve of the ``--fast`` training configuration (bf16,
+    fused lead stem, host-prepared NHWC input, dropout on) on a fixed
+    batch: every loss finite, and the curve falls."""
+    import dataclasses
+
+    from vit_grid_model_tpu.data.assembly import model_input_to_nhwc
+
+    cfg = dataclasses.replace(_cfg(), compute_dtype="bfloat16",
+                              fuse_lead_stem=True, nhwc_input=True,
+                              dropout=0.1)
+    tc = TrainConfig(learning_rate=1e-3, total_steps=30, warmup_steps=1,
+                     batch_size=2)
+    state = init_train_state(metnet3_init(jax.random.PRNGKey(0), cfg), tc)
+    step = build_train_step(cfg, tc)
+    batch = _batch(cfg, B=2)
+    batch["x"] = model_input_to_nhwc(batch["x"], cfg.pad_multiple,
+                                     jnp.bfloat16).copy()
+    losses = []
+    for _ in range(10):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    assert np.isfinite(losses).all(), losses
+    assert np.mean(losses[-3:]) < 0.9 * np.mean(losses[:3]), losses

@@ -1,9 +1,9 @@
 """CLI: signature-compatible evaluation entry point.
 
 Accepts every flag of the reference CLI (``evaluation_vit.py:694-721``) with
-the same defaults, so ``vit_stn_exp.sh`` runs unmodified; TPU-specific flags
-are additive.  ``--gpus`` is accepted for compatibility and maps onto JAX
-device selection (``cpu`` forces the CPU backend).
+the same defaults, so ``vit_stn_exp.sh`` runs unmodified; the flags this
+framework adds are additive.  ``--gpus`` is accepted for compatibility and
+maps onto JAX device selection (``cpu`` forces the CPU backend).
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="previous length for statistics of data")
     p.add_argument("--feat_dim", type=int, default=12,
                    help="feature dimension")
-    # --- TPU-native additions ---
+    # --- additions ---
     p.add_argument("--checkpoint", type=str, default=None,
                    help="torch .pkt or orbax dir; default "
                         "check_points/{model_name}.pkt like the reference")
@@ -57,15 +57,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--fast", action="store_true",
-                   help="throughput mode: bf16 + fused stem + Pallas "
-                        "attention + host-prepared NHWC input staging "
-                        "(not for checkpoint-parity scoring)")
+                   help="throughput mode: bf16 + fused stem + "
+                        "host-prepared NHWC input staging (not for "
+                        "checkpoint-parity scoring)")
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--max_batches", type=int, default=None)
     p.add_argument("--log_dir", type=str, default="logs")
     p.add_argument("--data_parallel", type=int, default=1,
                    help="devices on the mesh 'data' axis for data-parallel "
-                        "evaluation (-1: all devices); the TPU counterpart "
+                        "evaluation (-1: all devices); the counterpart "
                         "of the reference's nn.DataParallel eval — results "
                         "are bit-identical to single-device")
     p.add_argument("--collect_valid_times", action="store_true",
@@ -131,24 +131,15 @@ def build_configs(args):
     if args.fast:
         args.compute_dtype = "bfloat16"
         args.precision = "default"
-    import jax
-
-    # Pallas TPU kernels don't lower on the CPU backend (interpret mode is
-    # test-only); --fast on a CPU host keeps bf16 + fused stem, XLA
-    # attention.  On a >1-device mesh the kernels are shard_mapped over
-    # the window axis (GSPMD has no partitioning rule for pallas_call) —
-    # main() sets the mesh ambient and the shard axis.
-    on_tpu = jax.default_backend() != "cpu"
     model_cfg = MetNet3Config(
         window_size=args.input_dim + args.output_dim, n_variables=24,
         n_start_channels=args.hidden_dim, end_lead_time=args.output_dim,
         input_height=data_cfg.grid.height, input_width=data_cfg.grid.width,
         pm25_mean=feat_infos["PM2.5"][0], pm25_std=feat_infos["PM2.5"][1],
         compute_dtype=args.compute_dtype, fuse_lead_stem=args.fast,
-        use_pallas_attention=args.fast and on_tpu,
         # fast mode stages the input host-prepared in the device layout:
         # the assembler's stack is already channels-last, so this skips
-        # the 8ms on-chip (B,T,C,H,W)->NHWC relayout with BIT-EXACT
+        # the (B,T,C,H,W)->NHWC relayout on the device with BIT-EXACT
         # results vs the bf16-staged standard path (tests/test_nhwc_input.py)
         nhwc_input=args.fast)
     return data_cfg, model_cfg, test_start, test_end
@@ -187,13 +178,12 @@ def load_model_params(args, model_cfg):
     return params
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
+    """Run the evaluation; returns the metric summary (also logged)."""
     args = build_parser().parse_args(argv)
     force_cpu_backend(args)
     from vit_grid_model_tpu.core.jaxcache import enable_persistent_cache
-    from vit_grid_model_tpu.utils.relay import require_backend_reachable
 
-    require_backend_reachable(force_cpu=args.gpus == "cpu")
     enable_persistent_cache()
 
     import jax
@@ -209,8 +199,8 @@ def main(argv=None) -> None:
     if args.data_parallel != 1:
         from vit_grid_model_tpu.parallel import mesh as meshlib
 
-        mesh, model_cfg = meshlib.mesh_for_cli(args.data_parallel, model_cfg,
-                                               batch_size=args.batch_size)
+        mesh = meshlib.mesh_for_cli(args.data_parallel,
+                                    batch_size=args.batch_size)
 
     print(f"devices: {jax.devices()}")
     print(args)
@@ -238,6 +228,7 @@ def main(argv=None) -> None:
         print("\n".join(lines))
         if not ok:
             sys.exit(1)
+    return summary
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""CLI: pod-scale batched PM2.5 re-analysis generation."""
+"""CLI: batched, data-parallel PM2.5 re-analysis generation."""
 
 from __future__ import annotations
 
@@ -6,7 +6,8 @@ import argparse
 from datetime import datetime
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> int:
+    """Generate the fields; returns how many were written."""
     p = argparse.ArgumentParser(description="generate re-analysis fields")
     p.add_argument("--checkpoint", type=str, required=False, default=None)
     p.add_argument("--start", type=str, default="2023-01-01T00")
@@ -24,12 +25,12 @@ def main(argv=None) -> None:
     p.add_argument("--data_parallel", type=int, default=-1,
                    help="-1: all devices")
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
-    p.add_argument("--pallas", action="store_true", default=False)
+    p.add_argument("--precision", type=str, default="default",
+                   choices=["default", "high", "highest"],
+                   help="matmul precision (highest = f32 parity)")
     args = p.parse_args(argv)
     from vit_grid_model_tpu.core.jaxcache import enable_persistent_cache
-    from vit_grid_model_tpu.utils.relay import require_backend_reachable
 
-    require_backend_reachable()
     enable_persistent_cache()
 
     import jax
@@ -52,14 +53,11 @@ def main(argv=None) -> None:
         input_height=data_cfg.grid.height, input_width=data_cfg.grid.width,
         pm25_mean=feat_infos["PM2.5"][0], pm25_std=feat_infos["PM2.5"][1],
         compute_dtype=args.compute_dtype, fuse_lead_stem=True,
-        use_pallas_attention=args.pallas,
         # bf16 generation stages host-prepared in the device layout —
         # bit-exact vs bf16 staging (tests/test_nhwc_input.py)
         nhwc_input=args.compute_dtype == "bfloat16")
-    # shared --data_parallel contract; sets the ambient mesh +
-    # pallas_shard_axis when the Pallas kernels meet a >1-device mesh
-    mesh, model_cfg = meshlib.mesh_for_cli(args.data_parallel, model_cfg,
-                                           batch_size=args.batch_size)
+    mesh = meshlib.mesh_for_cli(args.data_parallel,
+                                batch_size=args.batch_size)
 
     if args.checkpoint and args.checkpoint.endswith(".pkt"):
         from vit_grid_model_tpu.core.torch_import import convert_checkpoint
@@ -81,8 +79,10 @@ def main(argv=None) -> None:
         params, model_cfg, data_cfg,
         start=datetime.fromisoformat(args.start),
         end=datetime.fromisoformat(args.end), out_dir=args.out_dir,
-        batch_size=args.batch_size, mesh=mesh)
+        batch_size=args.batch_size, mesh=mesh,
+        matmul_precision=args.precision)
     print(f"wrote {n} fields to {args.out_dir}")
+    return n
 
 
 if __name__ == "__main__":

@@ -38,9 +38,7 @@ def main(argv=None) -> None:
 
     force_cpu_backend(args)
     from vit_grid_model_tpu.core.jaxcache import enable_persistent_cache
-    from vit_grid_model_tpu.utils.relay import require_backend_reachable
 
-    require_backend_reachable(force_cpu=args.gpus == "cpu")
     enable_persistent_cache()
 
     import jax
@@ -57,8 +55,8 @@ def main(argv=None) -> None:
     if args.data_parallel != 1:
         from vit_grid_model_tpu.parallel import mesh as meshlib
 
-        mesh, model_cfg = meshlib.mesh_for_cli(args.data_parallel, model_cfg,
-                                               batch_size=args.batch_size)
+        mesh = meshlib.mesh_for_cli(args.data_parallel,
+                                    batch_size=args.batch_size)
     print(f"devices: {jax.devices()}")
     print(args)
 

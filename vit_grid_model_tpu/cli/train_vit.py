@@ -16,7 +16,7 @@ import numpy as np
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="train MetNet3 (TPU)")
+    p = argparse.ArgumentParser(description="train MetNet3")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--data_path", type=str,
@@ -24,7 +24,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sim_data_path", type=str,
                    default="../../short_term/nier_preprocessed/CMAQ")
     p.add_argument("--analysis_data_path", type=str, default="../analysis/CMAQ")
-    p.add_argument("--model_name", type=str, default="vit_tpu_model")
+    p.add_argument("--model_name", type=str, default="vit_model")
     p.add_argument("--hidden_dim", type=int, default=128)
     p.add_argument("--output_dim", type=int, default=12)
     p.add_argument("--input_dim", type=int, default=13)
@@ -50,42 +50,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="float32")
     p.add_argument("--dropout", type=float, default=0.1,
                    help="attention/mbconv dropout rate (reference default)")
-    p.add_argument("--use_pallas_attention", action="store_true",
-                   help="fused Pallas window attention in the train step "
-                        "(attention dropout rides the kernel as an "
-                        "externally-sampled mask). Combine with "
-                        "--use_pallas_attention_bwd: forward-only, the "
-                        "XLA-recompute VJP makes it a net LOSS for training "
-                        "(203.7 vs 143.8 ms/step XLA, flagship B=4 bf16; "
-                        "see docs/RESULTS.md)")
-    p.add_argument("--use_pallas_attention_bwd", action="store_true",
-                   help="with --use_pallas_attention: fused Pallas BACKWARD "
-                        "kernel (flash-style in-VMEM recompute) instead of "
-                        "the XLA-recompute VJP — measured 84.7 ms/step vs "
-                        "143.8 pure-XLA at flagship config (1.70x)")
     p.add_argument("--fuse_lead_stem", action="store_true",
                    help="compute the lead-independent part of the stem conv "
-                        "once per sample (exact up to float re-association; "
-                        "measured -6%% train step at flagship config)")
+                        "once per sample (exact up to float re-association)")
     p.add_argument("--fast", action="store_true",
                    help="throughput mode for training: bf16 + fused lead "
-                        "stem + fused Pallas attention forward AND backward "
-                        "with in-kernel dropout (measured-best train config: "
-                        "77.9 ms/step vs 143.8 pure-XLA at flagship B=4; "
-                        "see docs/RESULTS.md)")
+                        "stem + host-prepared NHWC input staging")
     p.add_argument("--shuffle_mode", choices=("samples", "batches", "buffer"),
                    default="samples",
                    help="'batches' shuffles CONSECUTIVE-index batches "
                         "instead of samples: keeps the union-assembly "
-                        "fast path (2x loader throughput, docs/RESULTS.md) "
-                        "at the cost of coarse SGD noise (window-neighbor "
-                        "samples co-occur).  'buffer' keeps union assembly "
-                        "AND mixes batch composition through a "
-                        "--shuffle_buffer-batch reservoir (tf.data-style "
-                        "local shuffle): reservoir=8 is 1.32x flagship "
-                        "wall-clock for +0.034 held-out RMSE; reservoir>=16 "
-                        "matches sample-level accuracy (four-point flagship "
-                        "A/B: docs/RESULTS.md)")
+                        "fast path of the loader at the cost of coarse SGD "
+                        "noise (window-neighbor samples co-occur).  "
+                        "'buffer' keeps union assembly AND mixes batch "
+                        "composition through a --shuffle_buffer-batch "
+                        "reservoir (tf.data-style local shuffle)")
     p.add_argument("--shuffle_buffer", type=int, default=8,
                    help="reservoir size in batches for "
                         "--shuffle_mode buffer")
@@ -144,12 +123,12 @@ def batches_from_dataset(dataset, data_cfg, batch_size, num_workers, seed,
             }
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """Train; returns ``(state, metrics)``: the final train state and the
+    last step's metrics as floats (None when no step ran)."""
     args = build_parser().parse_args(argv)
     from vit_grid_model_tpu.core.jaxcache import enable_persistent_cache
-    from vit_grid_model_tpu.utils.relay import require_backend_reachable
 
-    require_backend_reachable()
     enable_persistent_cache()
 
     import numpy as np
@@ -191,11 +170,6 @@ def main(argv=None) -> None:
     if args.fast:
         args.compute_dtype = "bfloat16"
         args.fuse_lead_stem = True
-        # Pallas TPU kernels don't lower on the CPU backend (interpret mode
-        # is test-only); --fast on a CPU host stays bf16 + XLA attention
-        if jax.default_backend() != "cpu":
-            args.use_pallas_attention = True
-            args.use_pallas_attention_bwd = True
     model_cfg = MetNet3Config(
         window_size=data_cfg.total_steps, n_variables=24,
         n_start_channels=args.hidden_dim, end_lead_time=args.output_dim,
@@ -203,8 +177,6 @@ def main(argv=None) -> None:
         pm25_mean=feat_infos["PM2.5"][0], pm25_std=feat_infos["PM2.5"][1],
         compute_dtype=args.compute_dtype, dropout=args.dropout,
         fuse_lead_stem=args.fuse_lead_stem,
-        use_pallas_attention=args.use_pallas_attention,
-        use_pallas_attention_bwd=args.use_pallas_attention_bwd,
         # fast mode stages host-prepared in the device layout — deletes the
         # on-chip input relayout, bit-exact (tests/test_nhwc_input.py)
         nhwc_input=args.fast)
@@ -251,10 +223,10 @@ def main(argv=None) -> None:
     if args.data_parallel != 1:
         from vit_grid_model_tpu.parallel import mesh as meshlib
 
-        mesh, model_cfg = meshlib.mesh_for_cli(args.data_parallel, model_cfg,
-                                               batch_size=args.batch_size)
+        mesh = meshlib.mesh_for_cli(args.data_parallel,
+                                    batch_size=args.batch_size)
         state = jax.device_put(state, meshlib.replicated(mesh))
-    step_fn = build_train_step(model_cfg, train_cfg, mesh)
+    step_fn = build_train_step(model_cfg, train_cfg)
 
     ckpt_base = os.path.join(args.checkpoint_dir, args.model_name)
     os.makedirs(args.checkpoint_dir, exist_ok=True)
@@ -290,13 +262,15 @@ def main(argv=None) -> None:
     from vit_grid_model_tpu.core.checkpoint import save_train_state
 
     done = 0
+    metrics = None
     remaining = args.steps - int(state.step)   # full-state resume continues
     while done < remaining:
         chunk = min(args.checkpoint_every, remaining - done)
         # islice bounds the iterator itself: train_loop's own max_steps
         # check would pull (assemble + transfer) one extra batch per chunk
-        state = train_loop(state, itertools.islice(batches, chunk), step_fn,
-                           log_every=args.log_every)
+        state, metrics = train_loop(
+            state, itertools.islice(batches, chunk), step_fn,
+            log_every=args.log_every)
         done += chunk
         path = save_params(f"{ckpt_base}.npz", state.params)
         save_train_state(f"{ckpt_base}_state.npz", state)
@@ -305,6 +279,9 @@ def main(argv=None) -> None:
         print(f"step {int(state.step)}: checkpoint -> {path} "
               f"(+ {ckpt_base}_state.npz)")
     print("training complete")
+    if metrics is not None:
+        metrics = {k: float(v) for k, v in metrics.items()}
+    return state, metrics
 
 
 if __name__ == "__main__":

@@ -79,24 +79,13 @@ class MetNet3Config:
     # ``metnet3.py:701`` normalizes channel 24 when this is set).
     stn_img_channel: Optional[int] = None
 
-    # TPU execution knobs (additive; no reference equivalent).
+    # Execution knobs (additive; no reference equivalent).
     pad_multiple: int = 14         # pad() target multiple (``metnet3.py:324``)
     compute_dtype: str = "float32"  # "bfloat16" for throughput mode
     # Compute the shared (lead-independent) part of the stem conv once per
     # sample instead of once per (sample, lead).  Exact up to float
     # re-association; disable for bit-level parity testing.
     fuse_lead_stem: bool = False
-    # Use the fused Pallas window-attention kernel instead of the XLA path.
-    use_pallas_attention: bool = False
-    # With use_pallas_attention: also use the fused Pallas BACKWARD kernel
-    # (flash-style in-VMEM recompute) instead of the XLA-recompute VJP —
-    # the training configuration of the kernel.
-    use_pallas_attention_bwd: bool = False
-    # Mesh axis to shard_map the Pallas kernels over (multi-chip: GSPMD
-    # cannot partition pallas_call, so the kernels are manually sharded
-    # along the embarrassingly-parallel window axis).  Requires the mesh to
-    # be ambient (jax.set_mesh) and the batch divisible by the axis size.
-    pallas_shard_axis: Optional[str] = None
     # Inference only: fold MBConv's three BatchNorms into the adjacent conv
     # weights (``ops/nn.py::fold_bn_into_conv``) — removes three elementwise
     # passes over the 4x-expanded hidden activations.  Equivalent up to one
@@ -108,10 +97,9 @@ class MetNet3Config:
     # channels-last, already zero-padded to pad_multiple and already in
     # compute_dtype, PM channels still raw (standardization stays
     # in-forward, reference quirk ``metnet3.py:362``).  Skips the
-    # (B,T,C,H,W)->NHWC on-chip relayout — measured 8.0 ms (5.2%) of the
-    # flagship forward (docs/RESULTS.md stage roofline) — by letting the
-    # host assembler emit this layout directly (its native stack is
-    # already channels-last; ``data/assembly.py::sim_stack_to_nhwc_input``).
+    # (B,T,C,H,W)->NHWC relayout on the device by letting the host
+    # assembler emit this layout directly (its native stack is already
+    # channels-last; ``data/assembly.py::sim_stack_to_nhwc_input``).
     # Bit-exact vs the bf16-staged (B,T,C,H,W) path (tests/test_nhwc_input.py).
     # Covers every variant incl. stn_img_channel (the station-image channel
     # rides the fused T*C axis; host side: assembly.model_input_to_nhwc).
@@ -120,20 +108,9 @@ class MetNet3Config:
     # (per-output-channel weights, static calibrated per-tensor activation
     # scales — ``ops/quantize.py``).  Requires params carrying int8
     # sidecars (``quantize_metnet3_int8``); params without sidecars fall
-    # back to the float path conv-by-conv.  Measured 1.25-1.53x on these
-    # conv shapes (``benchmarks/int8_conv.py``); accuracy-gated in
+    # back to the float path conv-by-conv.  Accuracy-gated in
     # ``bench.py --dtype int8``.
     int8_convs: bool = False
-
-    def __post_init__(self):
-        # the bwd kernel flag only takes effect via the forward flag
-        # (maxvit gates everything on use_pallas); a bwd-only setting would
-        # silently run pure-XLA attention
-        if self.use_pallas_attention_bwd and not self.use_pallas_attention:
-            raise ValueError(
-                "use_pallas_attention_bwd=True requires "
-                "use_pallas_attention=True (the backward kernel rides the "
-                "forward kernel's custom VJP; alone it has no effect)")
 
     @property
     def n_input_channels(self) -> int:

@@ -1,15 +1,16 @@
-"""Multi-host (multi-slice) initialization.
+"""Multi-host initialization.
 
-The reference is single-process (SURVEY §2.3).  For pod / multi-slice runs
-this wraps ``jax.distributed.initialize``: call once per host before any
-device use; afterwards ``jax.devices()`` spans the pod and the same
-``parallel.mesh`` code shards over ICI within a slice and DCN across slices
-— nothing else in the framework changes.
+The reference is single-process (SURVEY §2.3).  For runs over several GPU
+hosts this wraps ``jax.distributed.initialize``: call once per host before
+any device use; afterwards ``jax.devices()`` spans every host's cards and
+the same ``parallel.mesh`` code shards over NVLink within a host and the
+network between hosts — nothing else in the framework changes.
 
-Typical launch (one process per host):
+Typical launch (one process per host; nothing discovers the cluster, so
+the coordinator is given explicitly):
 
     from vit_grid_model_tpu.core import distributed
-    distributed.initialize()                      # env-driven (TPU pods)
+    distributed.initialize("host0:1234", num_processes=2, process_id=rank)
     mesh = parallel.mesh.make_mesh(MeshConfig())  # all global devices
 """
 
@@ -27,9 +28,10 @@ _initialized = False
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> None:
-    """Initialize the JAX distributed runtime.  With no arguments the TPU
-    pod environment variables drive discovery; explicit arguments support
-    DCN-connected CPU/GPU fleets and tests.
+    """Initialize the JAX distributed runtime.  GPU hosts give the
+    coordinator explicitly (``coordinator_address``, ``num_processes``,
+    ``process_id``); with no arguments a cluster environment JAX knows
+    (e.g. SLURM) drives discovery, and without one this is a no-op.
 
     MUST run before any backend use: querying devices (even
     ``jax.process_count()``) initializes the backends, after which
@@ -58,8 +60,9 @@ def initialize(coordinator_address: Optional[str] = None,
             return
         if "before any jax calls" in msg and not explicit:
             # backends already up in a single-process context (tests,
-            # notebooks): benign.  On a pod, configure the coordinator
-            # explicitly and call initialize() first — that path raises.
+            # notebooks): benign.  On several hosts, configure the
+            # coordinator explicitly and call initialize() first — that
+            # path raises.
             import warnings
 
             warnings.warn(

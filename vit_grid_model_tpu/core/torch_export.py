@@ -4,7 +4,7 @@ The inverse of ``core.torch_import``: a ``metnet3_init``-shaped pytree (our
 trained weights, an EMA copy, or an imported-and-modified checkpoint) maps
 onto the exact ``state_dict`` of the reference ``MetNet3`` /
 ``MetNet3_with_stn_imgs`` modules (``/root/reference/src/metnet3.py:191,518``
-— identical parameter sets), so a reference user can take a TPU-trained
+— identical parameter sets), so a reference user can take a trained
 model back into their existing torch evaluation infrastructure, including
 the ``DataParallel``-prefixed ``.pkt`` layout the shipped checkpoint uses
 (``evaluation_vit.py:107-109``).
@@ -328,9 +328,7 @@ def main(argv=None) -> None:
 
     from vit_grid_model_tpu.core.checkpoint import restore_params
     from vit_grid_model_tpu.models.metnet3 import metnet3_init
-    from vit_grid_model_tpu.utils.relay import require_backend_reachable
 
-    require_backend_reachable(force_cpu=True)
     jax.config.update("jax_platforms", "cpu")    # shape-only work
     cfg = MetNet3Config(
         window_size=args.input_dim + args.output_dim, n_variables=24,

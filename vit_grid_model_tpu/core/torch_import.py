@@ -4,7 +4,7 @@ The shipped checkpoint (``check_points/simulation_vit_model_12hr.pkt``,
 loaded at ``evaluation_vit.py:109``) is a ``DataParallel`` state_dict whose
 keys carry a ``module.`` prefix.  This converter maps every tensor to the
 corresponding slot of a ``metnet3_init``-shaped pytree, performing the layout
-changes the TPU-native design requires:
+changes this design requires:
 
 * conv kernels   OIHW  -> HWIO
 * linear weights (out, in) -> (in, out)

@@ -172,10 +172,10 @@ def sim_stack_to_nhwc_input(simulation: np.ndarray, total_steps: int,
     same split as ``models.metnet3.pad_values`` — pinned by
     tests/test_nhwc_input.py), cast to ``out_dtype``.
 
-    TPU-first staging: the assembled stack is ALREADY channels-last, so
-    unlike ``sim_stack_to_model_input`` (which transposes H,W to the
+    Device-layout staging: the assembled stack is ALREADY channels-last,
+    so unlike ``sim_stack_to_model_input`` (which transposes H,W to the
     minor axes for the reference (B,T,C,H,W) contract, only for the
-    model to transpose them back on-chip at 8 ms/batch), this is a pure
+    model to transpose them back on the device), this is a pure
     strided channel-subset copy — no axis permutation on host OR device.
     Native fused pass: ``vg_repack_nhwc``; numpy fallback byte-identical.
     """

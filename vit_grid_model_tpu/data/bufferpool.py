@@ -3,7 +3,7 @@
 A fresh multi-hundred-MB ``np.empty`` is a new anonymous mmap whose
 first-touch page faults serialize in the kernel: writing one flagship
 B=25 batch into a fresh allocation costs ~4 s at 94% system time vs
-~0.22 s into an already-faulted buffer (docs/RESULTS.md, round 3).  The
+~0.22 s into an already-faulted buffer (measured on a one-core host).  The
 prefetching loader and the eval staging path used to pay that storm on
 every batch, because downstream holders (queued batches, in-flight
 ``device_put``) kept prior arrays alive while each call allocated anew.

@@ -4,7 +4,7 @@
 Design: every class is a plain-Python map-style dataset returning **numpy**
 arrays (float32/int32/bool) in exactly the reference's per-class tuple order,
 plus a ``collate`` that stacks samples into batch arrays.  No torch anywhere:
-batches flow host->TPU through ``data.pipeline`` (threaded prefetch +
+batches flow host->device through ``data.pipeline`` (threaded prefetch +
 ``jax.device_put``).  The heavy lifting (CMAQ stacking, cycle/lead
 arithmetic, reanalysis reads, zero-fill fault semantics) lives in
 ``data.assembly`` / ``data.readers`` and is shared instead of cloned.
@@ -210,8 +210,7 @@ class _LazyCmaqDataset(_WindowedDataset):
     def prefers_single_dispatch(self) -> bool:
         """True when __getitem__ runs the internally-threaded native
         assembler: BatchLoader then uses one dispatcher thread instead of a
-        Python worker pool (which contends with the native pool,
-        docs/RESULTS.md 'Host data plane')."""
+        Python worker pool (which contends with the native pool)."""
         if self.use_native is False:
             return False
         from vit_grid_model_tpu.data import native

@@ -1,7 +1,7 @@
 """Host-side input pipeline: threaded sample assembly + batch prefetch.
 
 The reference parallelizes input with 5 DataLoader worker *processes*
-(``evaluation_vit.py:138``).  The TPU-native replacement keeps assembly on
+(``evaluation_vit.py:138``).  The replacement here keeps assembly on
 host threads (the work is numpy + file I/O, which releases the GIL), batches
 with the dataset's ``collate``, and prefetches a bounded queue of ready
 batches so the accelerator never waits on the filesystem.  With sharding
@@ -33,7 +33,7 @@ class BatchLoader:
       Consecutive batches keep the union-assembly fast path
       (``get_batch_collated``: (B-1+T)/(B*T) of the file reads), which
       sample-level shuffling forfeits — measured 87.7 vs 42.2 samples/s
-      steady at the flagship geometry (docs/RESULTS.md).  The trade is
+      steady at the flagship geometry on a one-core host.  The trade is
       coarse SGD noise: samples co-occur with their window neighbors.
     * ``"buffer"``: union-assembled consecutive batches feed a reservoir
       of ``shuffle_buffer * batch_size`` samples (preallocated ring
@@ -67,8 +67,8 @@ class BatchLoader:
         # "single": one dispatcher thread, sequential __getitem__ — the
         # right mode when the dataset's assembly is internally threaded
         # (the native C++ plane): Python worker threads on top CONTEND with
-        # the native pool rather than add (measured 33.9 vs 80.8 samples/s,
-        # docs/RESULTS.md).  "pool": the ThreadPoolExecutor path for
+        # the native pool rather than add (measured 33.9 vs 80.8 samples/s
+        # on a one-core host).  "pool": the ThreadPoolExecutor path for
         # GIL-releasing numpy/file assembly.  "auto": ask the dataset
         # (``prefers_single_dispatch``).
         if dispatch not in ("auto", "single", "pool"):

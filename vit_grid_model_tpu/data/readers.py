@@ -9,7 +9,7 @@ fault-injection hook for tests.
 The reference re-reads every file per sample (~100 reads/sample,
 SURVEY.md §3.3); consecutive samples share almost all of them, so a
 process-level LRU keyed by path makes the input pipeline compute-bound.
-Reads happen on host threads; nothing here touches the TPU.
+Reads happen on host threads; nothing here touches the accelerator.
 """
 
 from __future__ import annotations

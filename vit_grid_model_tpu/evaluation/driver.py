@@ -1,4 +1,4 @@
-"""Evaluation driver: the TPU-native counterpart of the reference's
+"""Evaluation driver: the counterpart of the reference's
 ``evaluation(args)`` (``evaluation_vit.py:59-692``).
 
 Same observable behavior — station/grid/stat metadata loading, the 2023-Q1
@@ -170,16 +170,15 @@ def evaluate(params, model_cfg: MetNet3Config, data_cfg: DataConfig, *,
     """Run the full evaluation; returns the metric accumulator (and appends
     the reference-format log).
 
-    ``mesh``: data-parallel evaluation — the TPU-native counterpart of the
+    ``mesh``: data-parallel evaluation — the counterpart of the
     reference's ``nn.DataParallel(vit_model)`` (``evaluation_vit.py:107``).
     The batch axis is sharded over the mesh's 'data' axis and jit/GSPMD
     computes the *global* program, so (unlike torch DataParallel, whose
     per-GPU chunks change the batch-mixing time-embedding quirk
     ``metnet3.py:395-401``) results are bit-identical to the single-device
     run.  A trailing batch not divisible by the data axis falls back to an
-    unsharded compile at its true size — on the plain-XLA path the same
-    function, on the shard_mapped-Pallas path a single-device submesh
-    (``parallel.mesh.UnshardedTail``) — numerics unchanged either way.
+    unsharded compile of the same function at its true size — numerics
+    unchanged.
 
     ``collect_valid_times``: reference quirk #19 — collect encoded sample
     times whose last input hour == 6 (``evaluation_vit.py:285-289``) into
@@ -215,26 +214,12 @@ def evaluate(params, model_cfg: MetNet3Config, data_cfg: DataConfig, *,
     fwd = jax.jit(forward)
     n_data = 1
     batch_shd = None
-    tail_fwd = None
     if mesh is not None:
         from vit_grid_model_tpu.parallel import mesh as meshlib
 
         n_data = mesh.shape["data"]
         batch_shd = meshlib.batch_sharding(mesh)
         params = jax.device_put(params, meshlib.replicated(mesh))
-        if model_cfg.pallas_shard_axis is not None:
-            # ragged final batch (drop_last=False, ``evaluation_vit.py:138``)
-            # on the shard_mapped-Pallas path: run it at its TRUE size on
-            # one device — bit-identical to single-device eval — instead of
-            # padding it (padding would perturb real predictions through
-            # the batch-mixing time-embedding quirk #11)
-            cfg_tail = dataclasses.replace(model_cfg, pallas_shard_axis=None)
-
-            def forward_tail(p, x, ts):
-                with jax.default_matmul_precision(matmul_precision):
-                    return metnet3_apply(p, x, ts, cfg_tail)
-
-            tail_fwd = meshlib.UnshardedTail(mesh, params, forward_tail)
     elif sharding is not None:
         params = jax.device_put(params, sharding)
 
@@ -250,36 +235,29 @@ def evaluate(params, model_cfg: MetNet3Config, data_cfg: DataConfig, *,
         host->HBM transfer with the forward.
 
         A ragged final batch (B not divisible over the mesh's data axis,
-        drop_last=False like the reference) always runs unsharded at its
-        TRUE size: through the main ``fwd`` on the plain-XLA mesh path, or
-        through the single-device ``tail_fwd`` on the shard_mapped-Pallas
-        path — either way bit-identical to the single-device run (no
-        padded sample ever perturbs real predictions via quirk #11)."""
+        drop_last=False like the reference) runs unsharded at its TRUE
+        size through the same ``fwd`` — bit-identical to the single-device
+        run: padding it would perturb real predictions through the
+        batch-mixing time-embedding quirk #11."""
         simulation, _, _, _, raw_times, _ = batch
         B = simulation.shape[0]
         out_dtype = (jnp.bfloat16 if model_cfg.compute_dtype == "bfloat16"
                      else np.float32)
         if model_cfg.nhwc_input:
             # host-prepared device layout: no axis permutation on host OR
-            # device (the 8ms on-chip relayout disappears; bit-exact vs
-            # the standard staging, tests/test_nhwc_input.py)
+            # device (bit-exact vs the standard staging,
+            # tests/test_nhwc_input.py)
             sim_vit = sim_stack_to_nhwc_input(
                 simulation, data_cfg.total_steps, model_cfg.pad_multiple,
                 out_dtype)
         else:
             sim_vit = sim_stack_to_model_input(
                 simulation, data_cfg.total_steps, out_dtype=out_dtype)
-        ragged = B % n_data != 0
-        use_tail = tail_fwd is not None and ragged
-        if use_tail:
-            # host arrays; UnshardedTail transfers under its 1-dev submesh
-            x, ts = sim_vit, np.asarray(raw_times)
-        else:
-            x, ts = jnp.asarray(sim_vit), jnp.asarray(raw_times)
-            if batch_shd is not None and not ragged:
-                x = jax.device_put(x, batch_shd)
-                ts = jax.device_put(ts, batch_shd)
-        return batch, B, x, ts, use_tail
+        x, ts = jnp.asarray(sim_vit), jnp.asarray(raw_times)
+        if batch_shd is not None and B % n_data == 0:
+            x = jax.device_put(x, batch_shd)
+            ts = jax.device_put(ts, batch_shd)
+        return batch, B, x, ts
 
     import itertools
 
@@ -293,10 +271,9 @@ def evaluate(params, model_cfg: MetNet3Config, data_cfg: DataConfig, *,
     while staged is not None:
         bi += 1
         ((simulation, curr_re, reanalysis, re_cls, raw_times, prev_vals),
-         B, x, ts, use_tail) = staged
+         B, x, ts) = staged
         with oom_guard("MetNet3 evaluation forward", batch_size):
-            preds_dev = (tail_fwd(x, ts) if use_tail
-                         else fwd(params, x, ts))   # async dispatch
+            preds_dev = fwd(params, x, ts)          # async dispatch
             nxt = next(it, None)                    # overlap: stage k+1 now
             staged = _stage(nxt) if nxt is not None else None
             # readback: XLA compile/alloc failures surface here

@@ -1,13 +1,12 @@
-"""Batched re-analysis generation: data-parallel inference over a TPU mesh.
+"""Batched re-analysis generation: data-parallel inference over a mesh.
 
-The pod-scale production path (BASELINE.json config: "multi-day CMAQ
-archives, data-parallel inference over TPU mesh"): stream CMAQ windows
+The production path for multi-day CMAQ archives: stream CMAQ windows
 through the jit-compiled MetNet3 forward with the batch axis sharded over
-the mesh's 'data' axis, overlap host->HBM transfers with compute, and write
-one PM2.5 field file per (sample time, lead hour).
+the mesh's 'data' axis, overlap host->device transfers with compute, and
+write one PM2.5 field file per (sample time, lead hour).
 
-Single-chip and pod runs share this code — only the mesh differs; XLA
-emits the scatter/gather collectives from the shardings.
+Single-card and multi-card runs share this code — only the mesh differs;
+XLA emits the scatter/gather collectives from the shardings.
 """
 
 from __future__ import annotations
@@ -38,6 +37,7 @@ def generate_reanalysis(params, model_cfg: MetNet3Config,
                         end: datetime, out_dir: str, batch_size: int = 8,
                         num_workers: int = 4,
                         mesh: Optional[jax.sharding.Mesh] = None,
+                        matmul_precision: str = "default",
                         progress: bool = True) -> int:
     """Generate PM2.5 re-analysis fields for every hour in [start, end].
 
@@ -67,7 +67,11 @@ def generate_reanalysis(params, model_cfg: MetNet3Config,
     if batch_size % n_dev != 0:
         raise ValueError(f"batch_size {batch_size} must divide evenly over "
                          f"the {n_dev}-way data axis")
-    fwd = jax.jit(lambda p, a, b: metnet3_apply(p, a, b, model_cfg))
+    def forward(p, x, ts):
+        with jax.default_matmul_precision(matmul_precision):
+            return metnet3_apply(p, x, ts, model_cfg)
+
+    fwd = jax.jit(forward)
     if mesh is not None:
         params = jax.device_put(params, meshlib.replicated(mesh))
         bsh = meshlib.batch_sharding(mesh)

@@ -4,7 +4,8 @@ Reproduces the reference's append-mode text log format exactly — the same
 '{:.4f}' scalar lines and the same pandas ``to_string`` tables with '1H'..
 row names and '> 15'/'> 35'/'> 75' columns (``evaluation_vit.py:203-206,
 577-692``) — so diff-based workflows over ``logs/test_{model}.log`` keep
-working against the TPU rebuild.
+working against this rebuild.  The tables are laid out here without pandas
+(``_table_str``), byte-identical to ``DataFrame.to_string``.
 """
 
 from __future__ import annotations
@@ -34,20 +35,32 @@ _TABLE_ORDER = (
 )
 
 
+_COLUMNS = ("> 15", "> 35", "> 75")
+
+
 def _table_str(values: np.ndarray, output_dim: int,
                hour_index: bool = True) -> str:
-    import pandas as pd
-
+    """The three per-threshold columns of ``values`` (3 * output_dim) laid
+    out as pandas' ``DataFrame.to_string`` does under a '{:.4f}' float
+    format: index left-justified, columns right-justified to the widest
+    cell, one space between columns, NaN as 'NaN', and a column without a
+    finite value at least 5 wide."""
     L = output_dim
-    frame = pd.DataFrame({
-        "> 15": values[:L],
-        "> 35": values[L:2 * L],
-        "> 75": values[2 * L:],
-    })
-    if hour_index:
-        frame.index = [f"{i}H" for i in range(1, L + 1)]
-    with pd.option_context("display.float_format", "{:.4f}".format):
-        return frame.to_string()
+    index = ([f"{i}H" for i in range(1, L + 1)] if hour_index
+             else [str(i) for i in range(L)])
+    index_width = max(len(s) for s in index)
+    columns = []
+    for c, header in enumerate(_COLUMNS):
+        col = np.asarray(values[c * L:(c + 1) * L], dtype=np.float64)
+        cells = ["NaN" if np.isnan(v) else f"{v:.4f}" for v in col]
+        width = max(len(header), *(len(s) for s in cells))
+        if not np.isfinite(col).any():
+            width = max(width, 5)
+        columns.append([header.rjust(width)]
+                       + [s.rjust(width) for s in cells])
+    rows = [" " * index_width] + [s.ljust(index_width) for s in index]
+    return "\n".join(" ".join([label] + [col[r] for col in columns])
+                     for r, label in enumerate(rows))
 
 
 def write_log(f: TextIO, metrics: EvaluationMetrics, args_repr: str = "") -> None:

@@ -134,27 +134,12 @@ def evaluate_by_station(params, model_cfg: MetNet3Config,
     fwd = jax.jit(forward)
     n_data = 1
     batch_shd = None
-    tail_fwd = None
     if mesh is not None:
         from vit_grid_model_tpu.parallel import mesh as meshlib
 
         n_data = mesh.shape["data"]
         batch_shd = meshlib.batch_sharding(mesh)
         params = jax.device_put(params, meshlib.replicated(mesh))
-        if model_cfg.pallas_shard_axis is not None:
-            # ragged final batch on the shard_mapped-Pallas path: run it
-            # unsharded at its true size (bit-identical to single-device;
-            # padding would perturb real predictions via quirk #11)
-            import dataclasses
-
-            cfg_tail = dataclasses.replace(model_cfg,
-                                           pallas_shard_axis=None)
-
-            def forward_tail(p, x, ts):
-                with jax.default_matmul_precision(matmul_precision):
-                    return metnet3_apply(p, x, ts, cfg_tail)
-
-            tail_fwd = meshlib.UnshardedTail(mesh, params, forward_tail)
     metrics = StationMetrics()
     for bi, batch in enumerate(loader):
         if max_batches is not None and bi >= max_batches:
@@ -171,16 +156,13 @@ def evaluate_by_station(params, model_cfg: MetNet3Config,
         else:
             x = sim_stack_to_model_input(sim, data_cfg.total_steps,
                                          out_dtype=out_dtype)
-        if tail_fwd is not None and B % n_data != 0:
-            # ragged final batch, shard_mapped-Pallas path: single-device
-            # at true size (see evaluation/driver.py)
-            preds = np.asarray(tail_fwd(x, np.asarray(raw_times)))
-        else:
-            xj, tj = jnp.asarray(x), jnp.asarray(raw_times)
-            if batch_shd is not None and B % n_data == 0:
-                xj = jax.device_put(xj, batch_shd)
-                tj = jax.device_put(tj, batch_shd)
-            preds = np.asarray(fwd(params, xj, tj))
+        # a ragged final batch runs unsharded at its true size (see
+        # evaluation/driver.py)
+        xj, tj = jnp.asarray(x), jnp.asarray(raw_times)
+        if batch_shd is not None and B % n_data == 0:
+            xj = jax.device_put(xj, batch_shd)
+            tj = jax.device_put(tj, batch_shd)
+        preds = np.asarray(fwd(params, xj, tj))
         preds = np.maximum(preds, 0.0)   # eval clamp (evaluation_vit.py:254)
         del stn_cls   # -1 at valid stations (see StationMetrics.update)
         stn_preds = preds[:, :, rows, cols]          # (B, L, korea)

@@ -1,7 +1,7 @@
 """Legacy grid models: station-encoder LSTM + grid LSTM with joint
 (grid ++ station) attention over all 5,494 grid cells.
 
-TPU-native re-designs of ``model.py:865-1499``:
+Re-designs of ``model.py:865-1499``:
 
 * ``simulation_grid_model``: station LSTM during encode; grid LSTM only in
   decode, fed the per-step CMAQ block with PM channels standardized; joint
@@ -15,7 +15,7 @@ TPU-native re-designs of ``model.py:865-1499``:
   output head denormalizes per the same method (``model.py:1317-1499``).
 
 The joint attention is one masked softmax over ~5.5k tokens — a single
-batched matmul pair on the MXU instead of the reference's per-step
+batched matmul pair instead of the reference's per-step
 ``nn.MultiheadAttention`` over a concatenated tensor.
 """
 

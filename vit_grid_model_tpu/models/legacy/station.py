@@ -1,6 +1,6 @@
 """Legacy station-level models: MultiAir and the simulation_model family.
 
-TPU-native re-designs of ``model.py:251-863``: LSTM encoder over station
+Re-designs of ``model.py:251-863``: LSTM encoder over station
 time series with per-step masked attention across stations, followed by a
 decoder conditioned on (satellite | CMAQ-cycle | nothing) inputs.  The
 reference's per-step Python loops with ``.cuda()`` scatter become

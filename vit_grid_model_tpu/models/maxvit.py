@@ -1,10 +1,11 @@
 """MaxViT backbone: per-stage [MBConv -> block attention -> grid attention]
 with register tokens and FiLM lead-time conditioning.
 
-TPU-native re-design of the reference backbone (``maxvit.py:224-342``):
-activations stay NHWC, window partitions are reshape/transpose pairs fused by
-XLA, and all windows of a layer go through ONE batched attention call so the
-(batch x window) axis keeps the MXU full.  Parity quirks reproduced:
+Re-design of the reference backbone (``maxvit.py:224-342``): activations
+stay NHWC, window partitions are reshape/transpose pairs fused by XLA, and
+all windows of a layer go through ONE batched attention call so the
+(batch x window) axis makes large matrix products.  Parity quirks
+reproduced:
 
 * stage dims double per stage (``dims = 2**i * dim``, ``maxvit.py:246``) but
   the first stage pair is ``(dim, dim)`` (``maxvit.py:251``);
@@ -44,14 +45,6 @@ class MaxViTSpec:
     mbconv_shrinkage_rate: float = 0.25
     dropout: float = 0.1
     num_register_tokens: int = 4
-    use_pallas: bool = False
-    # With use_pallas: fused Pallas BACKWARD kernel too (training); the
-    # default backward recomputes the XLA forward from saved inputs.
-    use_pallas_bwd: bool = False
-    # Mesh axis name to shard_map the Pallas kernels over (multi-chip:
-    # GSPMD cannot partition pallas_call itself).  The caller must have the
-    # mesh ambient via jax.set_mesh.  None = single-device kernels.
-    pallas_shard_axis: Optional[str] = None
     # Inference only: fold MBConv's three BatchNorms into the adjacent
     # conv weights (pure param transform; equivalent up to one float
     # re-association per channel).  Off by default for bit-stable parity.
@@ -103,52 +96,7 @@ def _attend_windows(layer_p, which: str, xw: Array, registers: Array,
                     nwin: int, *, training: bool, key: Optional[Array]):
     """Run one attention over packed (registers ++ window tokens)."""
     tokens = jnp.concatenate([registers, xw], axis=1)   # (bw, nr + n, d)
-    # training-time attention dropout rides the kernel as a pre-scaled keep
-    # mask sampled OUTSIDE (the kernel's XLA-recompute backward then applies
-    # the identical mask); grads flow through the custom VJP
-    use_pallas = spec.use_pallas and (not training or spec.dropout == 0.0
-                                      or key is not None)
-    if use_pallas:
-        from vit_grid_model_tpu.ops.pallas.attention import (
-            window_attention_pallas, window_attention_pallas_fused,
-            window_attention_pallas_sharded)
-
-        dropout_on = training and spec.dropout > 0.0 and key is not None
-        # dropout randomness, one of two contracts:
-        # * fused backward: a scalar seed — keep-masks are sampled INSIDE
-        #   both kernels by the counter-based hash PRNG (no HBM mask);
-        # * XLA-recompute VJP: a pre-scaled keep mask sampled OUTSIDE, so
-        #   the recompute applies identical randomness.
-        seed, rate, dmask = None, 0.0, None
-        if dropout_on and spec.use_pallas_bwd:
-            seed = jax.random.randint(
-                key, (1,), 0, jnp.iinfo(jnp.int32).max, dtype=jnp.int32)
-            rate = spec.dropout
-        elif dropout_on:
-            n_tok = tokens.shape[1]
-            keep = jax.random.bernoulli(
-                key, 1.0 - spec.dropout,
-                (tokens.shape[0], spec.heads, n_tok, n_tok))
-            dmask = (keep.astype(jnp.float32)
-                     / (1.0 - spec.dropout)).astype(tokens.dtype)
-        # positional calls: custom_vjp functions reject keyword arguments
-        if spec.pallas_shard_axis is not None:
-            # multi-chip: shard_map the kernels over the window axis of the
-            # ambient mesh (GSPMD cannot partition pallas_call); dropout
-            # seeds are decorrelated per shard inside the wrapper
-            out = window_attention_pallas_sharded(
-                layer_p[which], tokens, cond, bias_idx, dmask, seed,
-                spec.heads, nwin, 8, rate, spec.pallas_shard_axis,
-                fused=spec.use_pallas_bwd)
-        elif spec.use_pallas_bwd:
-            out = window_attention_pallas_fused(
-                layer_p[which], tokens, cond, bias_idx, None, seed,
-                spec.heads, nwin, 8, rate)
-        else:
-            out = window_attention_pallas(
-                layer_p[which], tokens, cond, bias_idx, dmask, spec.heads,
-                nwin)
-    else:
+    with jax.named_scope(which):
         out = attention(
             layer_p[which], tokens, cond, bias_idx, heads=spec.heads,
             windows_per_sample=nwin, dropout_rate=spec.dropout,
@@ -160,18 +108,13 @@ def _attend_windows(layer_p, which: str, xw: Array, registers: Array,
 
 def maxvit_apply(params, x: Array, cond: Array, spec: MaxViTSpec, *,
                  training: bool = False, rng: Optional[Array] = None,
-                 collect_bn: Optional[list] = None,
-                 stop_after: Optional[str] = None) -> Array:
+                 collect_bn: Optional[list] = None) -> Array:
     """x: (B, H, W, C) NHWC; cond: (B, cond_dim).  H, W divisible by the
     window size (the caller pads, ``metnet3.py:324``).
 
     In training mode with ``collect_bn`` a list, MBConv batch-norms use batch
     statistics and append their updated running stats (one dict per layer) to
     the list — the trainer merges them back into the param pytree.
-
-    ``stop_after`` ("mbconv" | "block"): profiling hook — return the partial
-    pipeline after that sub-stage of the FIRST layer (stage-roofline
-    benchmarks; meaningful at the shipped depth=(1,)).
     """
     from vit_grid_model_tpu.ops.mbconv import mbconv_train
 
@@ -197,8 +140,6 @@ def maxvit_apply(params, x: Array, cond: Array, spec: MaxViTSpec, *,
                        downsample=is_first, dropout_rate=0.0,
                        training=training, dropout_key=keys[0],
                        fold_bn=spec.fold_bn_eval and not training)
-        if stop_after == "mbconv":
-            return x
 
         b = x.shape[0]
         # ---- block (local-window) attention ----
@@ -209,8 +150,6 @@ def maxvit_apply(params, x: Array, cond: Array, spec: MaxViTSpec, *,
         xw, r = _attend_windows(layer_p, "block_attn", xw, r, cond, bias_idx,
                                 spec, nwin, training=training, key=keys[1])
         x = W.block_reverse(xw, w, dims)
-        if stop_after == "block":
-            return x
 
         # ---- grid (strided-window) attention ----
         # registers: mean across this sample's windows, then re-broadcast

@@ -1,7 +1,7 @@
 """MetNet3: pad -> resnet -> downsample -> MaxViT -> upsample -> resnet ->
 1x1 head, with per-lead-time batch expansion and FiLM conditioning.
 
-TPU-native re-design of the reference grid model (``metnet3.py:191-505``) and
+Re-design of the reference grid model (``metnet3.py:191-505``) and
 its station-image variant (``metnet3.py:518-834``).  The whole forward is one
 jit-compiled NHWC program; the per-lead batch expansion (``repeat_interleave``,
 ``metnet3.py:383``) becomes a leading (B*L) axis that shards cleanly over a
@@ -162,9 +162,6 @@ def _vit_spec(cfg: MetNet3Config) -> MaxViTSpec:
         mbconv_shrinkage_rate=cfg.mbconv_shrinkage_rate,
         dropout=cfg.dropout,
         num_register_tokens=cfg.num_register_tokens,
-        use_pallas=cfg.use_pallas_attention,
-        use_pallas_bwd=cfg.use_pallas_attention_bwd,
-        pallas_shard_axis=cfg.pallas_shard_axis,
         fold_bn_eval=cfg.fold_bn_eval,
     )
 
@@ -365,7 +362,6 @@ def metnet3_apply(params, x: Array, timestamps: Array, cfg: MetNet3Config, *,
                   training: bool = False, rng: Optional[Array] = None,
                   return_features: bool = False,
                   collect_bn: Optional[list] = None,
-                  stop_after: Optional[str] = None,
                   collect_amax: Optional[dict] = None) -> Array:
     """Forward pass.
 
@@ -378,12 +374,6 @@ def metnet3_apply(params, x: Array, timestamps: Array, cfg: MetNet3Config, *,
     timestamps: (B, T', 4) raw (year, month, day, hour) rows; row 6 is used
                 (quirk #10).
     Returns (B, L, H, W) PM2.5 fields (de-standardized).
-
-    ``stop_after`` ("input" | "stem" | "vit_mbconv" | "vit_block" | "vit" |
-    "resnet2"): profiling hook — return the partial pipeline through that
-    stage (stage-roofline benchmarks; static Python control flow, jit-safe).
-    "input" is everything before the first conv: standardize + the
-    (B,T,C,H,W)→NHWC relayout + pad + compute-dtype cast.
     """
     B = x.shape[0]
     L = cfg.end_lead_time
@@ -408,8 +398,8 @@ def metnet3_apply(params, x: Array, timestamps: Array, cfg: MetNet3Config, *,
     if cfg.nhwc_input:
         # host-prepared device layout: (B, Hp, Wp, T*C) channels-last,
         # zero-padded to pad_multiple, compute dtype, PM channels raw
-        # (data/assembly.py::sim_stack_to_nhwc_input) — skips the 8 ms
-        # on-chip (B,T,C,H,W)->NHWC relayout (docs/RESULTS.md roofline)
+        # (data/assembly.py::sim_stack_to_nhwc_input) — skips the
+        # (B,T,C,H,W)->NHWC relayout on the device
         H, Wd = cfg.input_height, cfg.input_width
         l_, r_, t_, b_ = pad_values(H, Wd, cfg.pad_multiple)
         pv = (l_, r_, t_, b_)
@@ -437,8 +427,6 @@ def metnet3_apply(params, x: Array, timestamps: Array, cfg: MetNet3Config, *,
 
     x = x.astype(dtype)
     cond = cond.astype(dtype)
-    if stop_after == "input":
-        return x
 
     int8 = cfg.int8_convs and not training
     if cfg.fuse_lead_stem and cfg.concat_time_to_input:
@@ -457,20 +445,12 @@ def metnet3_apply(params, x: Array, timestamps: Array, cfg: MetNet3Config, *,
         out = resnet_blocks_apply(params["resnet1"], x, cond, int8=int8,
                                   collect_amax=collect_amax, site="resnet1")
     out = vnn.max_pool_2x(out)
-    if stop_after == "stem":
-        return out
     out = maxvit_apply(params["vit"], out, cond, _vit_spec(cfg),
-                       training=training, rng=rng, collect_bn=collect_bn,
-                       stop_after={"vit_mbconv": "mbconv",
-                                   "vit_block": "block"}.get(stop_after))
-    if stop_after in ("vit_mbconv", "vit_block", "vit"):
-        return out
+                       training=training, rng=rng, collect_bn=collect_bn)
     out = vnn.conv2d_transpose(params["up"], out, stride=2)
     out = resnet_blocks_apply(params["resnet2"], out, cond, int8=int8,
                               collect_amax=collect_amax, site="resnet2")
     out = unpad_hw(out, pv)                                        # (BL,H,W,ch)
-    if stop_after == "resnet2":
-        return out
     if return_features:
         return out
 

@@ -13,9 +13,8 @@ This is the innermost hot op of the MaxViT backbone (reference
 * the bias table has ``(2w-1)^2 + 1`` rows; register rows/cols read the
   sentinel row (``maxvit.py:156-167``).
 
-The XLA path below is a batched dense attention over 53-token windows —
-one (Bw, h, n, n) einsum pair that maps straight onto the MXU.  A fused
-Pallas kernel for the same computation lives in ``ops/pallas/attention.py``.
+The path below is a batched dense attention over 53-token windows — one
+(Bw, h, n, n) einsum pair that XLA hands to the device's matrix units.
 """
 
 from __future__ import annotations
@@ -55,15 +54,9 @@ def attention_init(key, dim: int, *, cond_dim: Optional[int], heads: int,
 def attention(p, x: Array, cond: Optional[Array], bias_indices: Array, *,
               heads: int, windows_per_sample: int,
               dropout_rate: float = 0.0, training: bool = False,
-              dropout_key: Optional[Array] = None,
-              dropout_mask: Optional[Array] = None) -> Array:
+              dropout_key: Optional[Array] = None) -> Array:
     """x: (Bw, n, dim) where Bw = B_cond * windows_per_sample (sample-major);
     cond: (B_cond, cond_dim) or None; bias_indices: (n, n) int32.
-
-    ``dropout_mask``: optional pre-scaled keep mask (Bw, heads, n, n) —
-    attention probabilities are multiplied by it instead of sampling from
-    ``dropout_key`` (the externally-sampled-mask contract shared with the
-    Pallas kernel, so its XLA-recompute backward sees identical randomness).
 
     Returns (Bw, n, dim).
     """
@@ -96,10 +89,7 @@ def attention(p, x: Array, cond: Optional[Array], bias_indices: Array, *,
     sim = sim + bias.transpose(2, 0, 1)[None]
 
     attn = jax.nn.softmax(sim, axis=-1).astype(v.dtype)
-    if dropout_mask is not None:
-        attn = attn * dropout_mask.astype(attn.dtype)
-    else:
-        attn = vnn.dropout(dropout_key, attn, dropout_rate, training)
+    attn = vnn.dropout(dropout_key, attn, dropout_rate, training)
 
     out = jnp.einsum("bhij,bhjd->bhid", attn, v,
                      preferred_element_type=jnp.float32).astype(v.dtype)

@@ -1,10 +1,10 @@
 """Functional neural-net primitives, NHWC layout, params as plain pytrees.
 
-These are the TPU-native building blocks behind every model in the framework.
+These are the building blocks behind every model in the framework.
 Design rules:
 
-* activations are channels-last (NHWC) so XLA tiles the channel axis onto the
-  128-wide lane dimension of the VPU/MXU without relayout;
+* activations are channels-last (NHWC), the layout cuDNN's convolutions and
+  XLA's fusions take without a relayout;
 * every primitive is a pure function ``apply(params, x, ...)`` plus an
   ``init(key, ...) -> params`` companion, so the whole model is one pytree
   and one jit-compiled program — no module objects in the compute path;
@@ -284,7 +284,7 @@ def drop_sample(key: Optional[Array], x: Array, prob: float,
     """Per-sample stochastic depth.  NOTE: unreachable in the reference at
     eval (and its train-mode impl is broken — ``maxvit.py:72`` constructs
     ``torch.FloatTensor((shape,))`` which raises); provided here as the
-    working TPU-native equivalent for training."""
+    working equivalent for training."""
     if not training or prob == 0.0 or key is None:
         return x
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)

@@ -1,10 +1,12 @@
 """Post-training int8 quantization of the resnet 3x3 convs (inference).
 
-v5e runs int8 MXU at 2x the bf16 rate; measured on this toolchain the
-model's 3x3 conv shapes gain 1.25-1.53x while its GEMM/1x1 shapes do NOT
-(``benchmarks/int8_conv.py``), so quantization targets exactly the conv
-stages the stage roofline ranks highest after attention: the resnet1/
-resnet2 ``Block`` 3x3 convs (``benchmarks/stage_roofline.py``).
+Plain ``lax`` code: XLA lowers the int8 x int8 -> int32 convolution to
+the device's integer convolution (on an H100, cuDNN's int8 path, whose
+published dense int8 rate is twice the bf16 rate).  Quantization targets
+the resnet1/resnet2 ``Block`` 3x3 convs, the largest convolutions of the
+model after the stem.  Whether it pays on a given card is a benchmark
+question (``bench.py --dtype int8`` reports both the rate and the RMSE
+delta against bf16).
 
 Recipe (standard PTQ):
 * weights: symmetric per-output-channel int8 (HWIO channel = last axis);
@@ -17,7 +19,7 @@ Recipe (standard PTQ):
   dtype.
 
 Flag-gated (``MetNet3Config.int8_convs``) and eval-only; the reference has
-no quantized path (this is a TPU-native throughput feature, accuracy-gated
+no quantized path (a throughput feature of this framework, accuracy-gated
 in ``bench.py --dtype int8`` / tests/test_int8.py).
 """
 

@@ -3,7 +3,7 @@
 torch-semantics building blocks (``nn.LSTMCell``, single-head
 ``nn.MultiheadAttention`` with key_padding_mask) re-expressed as pure
 functions so the reference's per-timestep Python loops become
-``lax.scan``-friendly TPU programs.
+``lax.scan``-friendly programs.
 
 The reference updates only batch rows that have >=1 valid station
 (``model.py:352-355`` boolean indexing).  Data-dependent gather/scatter is

@@ -2,11 +2,12 @@
 
 The reference's entire inter-device story is single-process
 ``torch.nn.DataParallel`` (``evaluation_vit.py:107``): replicate the module,
-scatter the batch, gather outputs.  The TPU-native counterpart is a named
+scatter the batch, gather outputs.  The counterpart here is a named
 ``jax.sharding.Mesh`` plus ``NamedSharding`` annotations consumed by ``jit``
-— GSPMD inserts all collectives (gradient psum, output gather) over ICI, and
-the same code scales from 1 chip to a pod and across slices over DCN via
-``jax.distributed.initialize``.
+— GSPMD inserts all collectives (gradient psum, output gather), which XLA
+hands to NCCL over NVLink between the cards of a host, and the same code
+scales across hosts via ``jax.distributed.initialize``.  The mesh shape
+follows the algorithm (data x model), not the interconnect.
 
 Axes:
 * ``data``  — batch (and the fused B*L lead axis): pure data parallelism,
@@ -22,7 +23,6 @@ from typing import Optional, Sequence
 import numpy as np
 
 import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from vit_grid_model_tpu.core.config import MeshConfig
@@ -41,52 +41,20 @@ def make_mesh(cfg: MeshConfig = MeshConfig(),
     return Mesh(arr, cfg.axis_names)
 
 
-def mesh_for_cli(data_parallel: int, model_cfg=None,
-                 batch_size: Optional[int] = None):
-    """The CLIs' shared ``--data_parallel`` contract in one place
-    (previously copy-pasted per CLI, which is how station-eval silently
-    missed the Pallas wiring): ``-1`` = all devices, ``k > 0`` = a
-    k-device subset.  When ``model_cfg`` selects the Pallas kernels and
-    the mesh spans more than one device, the mesh is made ambient
-    (``jax.set_mesh``) and ``pallas_shard_axis`` is set so the in-model
-    ``shard_map`` partitions the kernels (GSPMD cannot partition
-    ``pallas_call``).  ``batch_size``, when given, is validated to divide
-    over the data axis up front — shard_map/device_put otherwise fail at
-    trace time with an obscure error.  Returns ``(mesh, model_cfg)``."""
+def mesh_for_cli(data_parallel: int,
+                 batch_size: Optional[int] = None) -> Mesh:
+    """The CLIs' shared ``--data_parallel`` contract in one place: ``-1`` =
+    all devices, ``k > 0`` = a k-device subset, as a pure data mesh.
+    ``batch_size``, when given, is validated to divide over the data axis
+    up front — device_put otherwise fails with an obscure error."""
     devs = jax.devices()[:data_parallel] if data_parallel > 0 else None
     mesh = make_mesh(MeshConfig(data=data_parallel, model=1), devices=devs)
     print(f"mesh: {dict(mesh.shape)}")
-    validate_pallas_mesh(mesh, model_cfg)
     if batch_size is not None and batch_size % mesh.shape["data"] != 0:
         raise ValueError(
             f"batch_size {batch_size} must divide over the mesh data axis "
             f"({mesh.shape['data']} devices)")
-    if (model_cfg is not None and model_cfg.use_pallas_attention
-            and mesh.size > 1):
-        import dataclasses
-
-        jax.set_mesh(mesh)
-        model_cfg = dataclasses.replace(model_cfg, pallas_shard_axis="data")
-    return mesh, model_cfg
-
-
-def validate_pallas_mesh(mesh: Optional[Mesh], model_cfg) -> None:
-    """Fail loudly instead of silently degrading (round-2 review): the
-    fused Pallas kernels are shard_mapped over the window ('data') axis
-    only — on a mesh with a >1 'model' axis the head-sharded qkv params
-    cannot enter the window-sharded kernel (docs/DESIGN.md scope note), so
-    the combination must be rejected, not quietly swapped for XLA
-    attention."""
-    if model_cfg is None or not getattr(model_cfg, "use_pallas_attention",
-                                        False):
-        return
-    if mesh is not None and dict(mesh.shape).get("model", 1) > 1:
-        raise ValueError(
-            "use_pallas_attention is not supported on a mesh with a >1 "
-            "'model' (tensor-parallel) axis: the fused kernels shard over "
-            "the window ('data') axis only. Use a model=1 mesh, or disable "
-            "use_pallas_attention and let GSPMD shard the XLA attention "
-            "heads (docs/DESIGN.md, 'One composition rule').")
+    return mesh
 
 
 def batch_sharding(mesh: Mesh) -> NamedSharding:
@@ -130,47 +98,6 @@ def shard_batch(mesh: Mesh, batch):
     """Place a host numpy batch into the device layout, batch-axis sharded."""
     s = batch_sharding(mesh)
     return jax.tree.map(lambda x: jax.device_put(x, s), batch)
-
-
-class UnshardedTail:
-    """Single-device fallback forward for ragged final eval batches.
-
-    The shard_mapped Pallas kernels require the window axis to divide the
-    mesh's 'data' axis, so a final batch whose size does not divide it
-    cannot run sharded — and padding it with a repeated sample perturbs the
-    REAL predictions through the reference's batch-mixing time-embedding
-    quirk (#11, ``metnet3.py:395-401``).  This helper instead runs the
-    ragged tail at its TRUE size on one device, bit-identical to the
-    single-device run (``drop_last=False`` semantics of the reference,
-    ``evaluation_vit.py:138``).  A 1-device submesh is made ambient for the
-    call so the plain ``pallas_call`` (which GSPMD cannot partition)
-    compiles single-device even when the caller installed the full mesh via
-    ``jax.set_mesh``.
-
-    Lazily compiled: most workloads never hit a ragged batch (it is at most
-    the last one), so the extra compile + single-device param copy are only
-    paid when needed.
-    """
-
-    def __init__(self, mesh: Mesh, params, forward):
-        self._mesh = mesh
-        self._params_src = params
-        self._forward = forward       # f(params, x, ts), pallas unsharded
-        self._state = None
-
-    def __call__(self, x, ts):
-        if self._state is None:
-            dev = self._mesh.devices.flat[0]
-            shape = (1,) * len(self._mesh.axis_names)
-            sub = Mesh(np.asarray([dev]).reshape(shape),
-                       self._mesh.axis_names)
-            with jax.set_mesh(sub):
-                p = jax.device_put(self._params_src,
-                                   NamedSharding(sub, P()))
-            self._state = (sub, jax.jit(self._forward), p)
-        sub, fn, p = self._state
-        with jax.set_mesh(sub):
-            return fn(p, jnp.asarray(x), jnp.asarray(ts))
 
 
 def pad_to_multiple(batch, multiple: int):

@@ -2,16 +2,16 @@
 
 The reference ships no trainer (SURVEY.md §3.5); this is the reconstructed
 contract — ``Dataset_v3``-style batches -> MetNet3 forward -> Focal-R on
-(preds, reanalysis) -> optimizer step — built TPU-first:
+(preds, reanalysis) -> optimizer step:
 
 * one jit-compiled train step over a named mesh: batch sharded on 'data',
   params replicated (or head-sharded with tensor_parallel); GSPMD inserts
-  the gradient psum over ICI;
+  the gradient all-reduce;
 * MBConv batch-norm statistics computed globally (XLA turns the batch mean
   into a cross-device reduction) and their running averages merged back into
   the param pytree, exactly like torch's momentum update;
 * optional ``jax.checkpoint`` rematerialization of the backbone to trade
-  FLOPs for HBM;
+  FLOPs for device memory;
 * optax AdamW + cosine schedule + global-norm clipping; orbax checkpoints.
 """
 
@@ -30,7 +30,6 @@ import optax
 from vit_grid_model_tpu.core.config import MetNet3Config, TrainConfig
 from vit_grid_model_tpu.models.metnet3 import metnet3_apply
 from vit_grid_model_tpu.train import losses as L
-from vit_grid_model_tpu.parallel import mesh as meshlib
 
 
 @jax.tree_util.register_dataclass
@@ -102,14 +101,13 @@ def _merge_bn(params, bn_updates):
     return params
 
 
-def build_train_step(model_cfg: MetNet3Config, train_cfg: TrainConfig,
-                     mesh=None) -> Callable:
+def build_train_step(model_cfg: MetNet3Config,
+                     train_cfg: TrainConfig) -> Callable:
     """Returns jitted ``step(state, batch) -> (state, metrics)``.
 
     batch: dict with 'x' (B,T,C,H,W), 'timestamps' (B,T,4),
     'targets' (B,L,H,W), optional 'mask' (B,L,H,W) bool.
     """
-    meshlib.validate_pallas_mesh(mesh, model_cfg)
     loss_kw = {}
     if train_cfg.loss == "focal_r":
         loss_kw = dict(beta=train_cfg.focal_beta, gamma=train_cfg.focal_gamma,
@@ -167,18 +165,21 @@ def build_train_step(model_cfg: MetNet3Config, train_cfg: TrainConfig,
     # With a mesh, shardings ride on the input arrays themselves: the caller
     # places params/opt_state replicated and the batch sharded on 'data'
     # (``parallel.mesh.shard_batch``); GSPMD propagates the rest and inserts
-    # the gradient all-reduce.  donate lets XLA reuse the old state's HBM.
+    # the gradient all-reduce.  donate lets XLA reuse the old state's memory.
     return jax.jit(step, donate_argnums=0)
 
 
 def train_loop(state: TrainState, batches: Iterable, step_fn: Callable, *,
                log_every: int = 10, max_steps: Optional[int] = None,
                log: Callable[[str], None] = print):
-    """Drive the jitted step over an iterable of host batches."""
+    """Drive the jitted step over an iterable of host batches.  Returns
+    ``(state, metrics)``: the final state and the last step's metrics (device
+    arrays; None when ``batches`` was empty)."""
     from vit_grid_model_tpu.utils.hbm import oom_guard
 
     t0 = time.time()
     roll = [0, t0]       # [step count, timestamp] at the last log line
+    metrics = None
     for i, batch in enumerate(batches):
         if max_steps is not None and i >= max_steps:
             break
@@ -186,7 +187,7 @@ def train_loop(state: TrainState, batches: Iterable, step_fn: Callable, *,
                        np.asarray(batch["x"]).shape[0]
                        if isinstance(batch, dict) and "x" in batch
                        else None):
-            # compile-time HBM exhaustion surfaces at the call; runtime
+            # compile-time memory exhaustion surfaces at the call; runtime
             # exhaustion at the metric readback below — both guarded
             state, metrics = step_fn(state, batch)
             if i % log_every == 0:
@@ -203,4 +204,4 @@ def train_loop(state: TrainState, batches: Iterable, step_fn: Callable, *,
                 log(f"step {int(state.step)}: loss={m['loss']:.4f} "
                     f"rmse={m['rmse']:.3f} gnorm={m['grad_norm']:.3f} "
                     f"({rate:.2f} steps/s cum, {last:.2f} last-{log_every})")
-    return state
+    return state, metrics

@@ -2,7 +2,7 @@
 
 The reference's debugging story is interactive: pdb/ipdb imports and a
 NaN-triggered ``pdb.set_trace()`` in the eval loop (``evaluation_vit.py:26,
-256-257``; ``metnet3.py:11``; SURVEY.md §5).  The TPU-native counterparts:
+256-257``; ``metnet3.py:11``; SURVEY.md §5).  The counterparts here:
 
 * ``check_numerics(x, name)``: raises (host-side) on NaN/Inf with location
   info — usable on fetched arrays, mirroring the eval guard;
